@@ -1,6 +1,6 @@
-"""kmtricks_tpu — a TPU-native k-mer matrix and Bloom filter engine.
+"""kmtricks_tpu — a k-mer matrix and Bloom filter engine in JAX.
 
-A brand-new framework (JAX / XLA / Pallas / pjit) with the capabilities of
+A framework (JAX / XLA, sharded with shard_map) with the capabilities of
 kmtricks (tlemane/kmtricks): builds per-sample sorted k-mer count tables,
 cross-sample count / presence-absence matrices and partitioned Bloom filter
 matrices from collections of FASTA/FASTQ(.gz)/BAM read sets, including
@@ -10,7 +10,7 @@ Layout:
   core/      host-side exact data types (k-mer codec, minimizers, hashing,
              histograms, partition windows, repartition tables)
   io/        byte-compatible on-disk formats (run directory, all file types)
-  ops/       device compute (jax + pallas kernels)
+  ops/       device compute (jax kernels)
   parallel/  device mesh, sharding and collectives
   runtime/   pipeline orchestration (stages, scheduling, resume)
   cli.py     command-line interface (pipeline/repart/superk/count/merge/...)

@@ -36,8 +36,11 @@ def _add_common_pipeline(p: argparse.ArgumentParser, merge_opts: bool = True):
                    help="number of partitions (0=auto)")
     p.add_argument("--minimizer-type", type=int, default=0)
     p.add_argument("--repartition-type", type=int, default=0)
-    p.add_argument("--max-memory", type=int, default=8192,
-                   help="max memory per core (MB)")
+    p.add_argument("--max-memory", type=int,
+                   default=C.DEFAULT_MAX_MEMORY_MB,
+                   help="max memory per core (MB); left at its default, "
+                   "the streaming engine's device table may take an "
+                   "eighth of each device's memory")
     p.add_argument("--restrict-to", type=float, default=1.0,
                    help="process only a fraction of partitions")
     p.add_argument("--restrict-to-list", type=_parts, default=None,
@@ -62,9 +65,9 @@ def _add_common_pipeline(p: argparse.ArgumentParser, merge_opts: bool = True):
     p.add_argument("--focus", type=float, default=0.5)
     p.add_argument("--backend", choices=["auto", "host", "device", "mesh"],
                    default="auto",
-                   help="compute backend: auto (mesh on TPU, host on CPU), "
-                        "host numpy, per-stage jax device, or the fused "
-                        "sharded mesh step")
+                   help="compute backend: auto (mesh on any accelerator, "
+                        "host on CPU), host numpy, per-stage jax device, "
+                        "or the fused sharded mesh step")
     p.add_argument("--threads", "-t", type=int, default=1,
                    help="host thread pool size for count/merge stages")
     p.add_argument("--verbose", "-v", default="info")
@@ -106,7 +109,8 @@ def _options_from_args(args) -> "PipelineOptions":
         nb_partitions=getattr(args, "nb_partitions", 0),
         minim_type=getattr(args, "minimizer_type", 0),
         repart_type=getattr(args, "repartition_type", 0),
-        max_memory_mb=getattr(args, "max_memory", 8192),
+        max_memory_mb=getattr(args, "max_memory",
+                              C.DEFAULT_MAX_MEMORY_MB),
         restrict_to=getattr(args, "restrict_to", 1.0),
         restrict_to_list=getattr(args, "restrict_to_list", None),
         hist=getattr(args, "hist", False),
@@ -135,7 +139,7 @@ def _options_from_args(args) -> "PipelineOptions":
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="kmtricks_tpu",
-        description="TPU-native k-mer matrix and Bloom filter engine "
+        description="JAX k-mer matrix and Bloom filter engine "
                     "(kmtricks-compatible)")
     from kmtricks_tpu import __version__
     ap.add_argument("--version", action="version",
@@ -220,34 +224,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     import logging
-    import os
-
-    # honor an explicit JAX_PLATFORMS env var: some site configurations
-    # force-register an accelerator backend via jax.config at interpreter
-    # start, which would otherwise override the user's choice (and the
-    # "auto" backend resolution would initialize it)
-    envp = os.environ.get("JAX_PLATFORMS")
-    if envp:
-        import jax
-        jax.config.update("jax_platforms", envp)
 
     # persistent XLA compilation cache: device-backend runs reuse compiled
-    # programs across processes (first compiles of the big streaming
-    # programs are minutes on remote-attached chips, cached loads ~0.7 s).
-    # KMTRICKS_JAX_CACHE overrides the location; "0" disables.
-    cache = os.environ.get(
-        "KMTRICKS_JAX_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "kmtricks_tpu",
-                     "jax"))
-    if cache and cache != "0":
-        try:
-            import jax
-            os.makedirs(cache, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                              1)
-        except Exception:  # noqa: BLE001 - cache is best-effort
-            pass
+    # programs across processes (runtime/jax_cache.py picks the directory)
+    from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+    enable_compile_cache()
 
     args = build_parser().parse_args(argv)
     level = getattr(args, "verbose", "info")

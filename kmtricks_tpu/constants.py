@@ -78,6 +78,7 @@ DEFAULT_RECURRENCE_MIN = 1
 DEFAULT_SHARE_MIN = 0
 DEFAULT_BLOOM_SIZE = 10_000_000
 DEFAULT_BITW = 2
+DEFAULT_MAX_MEMORY_MB = 8192   # --max-memory (MB per core)
 
 # GATB Sequence2SuperKmer: sentinel marking an undefined superkmer minimizer.
 DEFAULT_MINIMIZER = 1_000_000_000

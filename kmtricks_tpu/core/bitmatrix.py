@@ -32,9 +32,9 @@ def transpose_bits(rows: np.ndarray, nrows: int | None = None) -> np.ndarray:
 
 
 def transpose_bits_device(rows, nrows: int | None = None):
-    """JAX twin of :func:`transpose_bits` (jnp arrays in/out), shaped for
-    the TPU: instead of transposing an (N, S) u8 cell matrix (large u8
-    transposes lower poorly), unpack each 8-ROW group's bits and reduce
+    """JAX twin of :func:`transpose_bits` (jnp arrays in/out): instead of
+    transposing an (N, S) u8 cell matrix (large u8 transposes lower
+    poorly), unpack each 8-ROW group's bits and reduce
     them into output bytes — the only real transpose left is the small
     (N/8, S) byte matrix (the reference needs an SSE 16x8 block kernel
     for the same reason, bitmatrix.hpp:238-289)."""

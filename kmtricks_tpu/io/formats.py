@@ -426,7 +426,8 @@ def write_vector_matrix_file(path: str, rows: np.ndarray, bits: int,
     """rows: (window, nbytes(bits)) uint8 — one row per hash value, dense."""
     rows = np.ascontiguousarray(rows, dtype=np.uint8)
     # memoryview, not tobytes(): a bloom-scale window is ~117 MB and the
-    # copy alone costs ~100 ms — write straight from the array buffer
+    # copy would cost as much as the write — write straight from the
+    # array buffer
     # (the lz4 binding needs a bytes object, so only that path copies)
     with open(path, "wb") as f:
         _write_header(f, compressed, C.MAGIC_BITMATRIX,

@@ -708,7 +708,7 @@ def estimate(uri: str | list[str], sample: int = 50000) -> BankEstimate:
 
     Results are memoized per (paths, size, mtime): a pipeline estimates
     every bank twice (ConfigurationAlgorithm, then the streaming engine's
-    chunk sizing) and the sampled parse is ~0.5 s per 10-file collection."""
+    chunk sizing), and the sampled parse reads 50k records per file."""
     paths = uri if isinstance(uri, list) else uri.split(",")
     try:
         key = (tuple(p.strip() for p in paths), sample,

@@ -2,7 +2,7 @@
 //
 // The reference implements its host-side byte-twiddling (lz4 frame streams,
 // superkmer packing, xxHash) in native code (thirdparty/lz4, xxHash, and the
-// gatb superkmer serializer); this module is the TPU framework's native
+// gatb superkmer serializer); this module is this framework's native
 // equivalent, exposed to Python via ctypes (no pybind11 in this image).
 //
 // Contents (all clean-room from the public specs):

@@ -19,8 +19,7 @@ Everything else — rescue zeroing, recurrence keep verdicts, per-partition
 merge statistics — is EXACTLY reconstructible from ``pre`` alone
 (host/ops.py merge_dense): solid = pre >= amin, a zero cell = absent
 (present cells always hold count >= 1). Keeping those off the device
-removes ~9 full-N scatter passes from the step (measured ~0.5 s each at
-78M occurrences on a v5e).
+removes ~9 full-N scatter passes from the step.
 """
 
 from __future__ import annotations
@@ -48,9 +47,8 @@ def compact_count_rows(part_s, keys_s, samp_s, cnt, present, row_head, *,
     never needed larger); callers re-run with bigger caps if
     nrows > rows_cap or npres > pre_cap.
 
-    Implementation: a direct scatter of all N occurrences costs ~9 ns/row
-    input-bound on a v5e (and a multi-column row scatter ~10x that), so
-    instead the present entries are COMPACTED FIRST with a 3-operand sort
+    Implementation: rather than a direct scatter of all N occurrences
+    (and a multi-column row scatter), the present entries are COMPACTED FIRST with a 3-operand sort
     keyed on ((~present) << 31 | position) — present positions come out
     first, in order, with (count, head|sample) carried as values — and
     the dense matrix is scattered from the ~density-times-smaller stream.

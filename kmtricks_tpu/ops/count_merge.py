@@ -13,11 +13,10 @@ count_processor.hpp hard-min/saturate) with the cross-sample merge + rescue
 Everything is fixed-shape with validity masks; invalid/padded entries sort to
 the end and never form segments. Compaction happens on host (or downstream).
 
-Performance note: all per-segment quantities are computed with
-``associative_scan``-based segmented scans (log-depth vector passes) —
-TPU scatters (``segment_sum`` with millions of segments) and large gathers
-cost ~10x more than the sort itself, so this kernel avoids them entirely;
-only the tiny per-sample statistics use masked reductions.
+Performance note: all per-segment quantities are computed with native
+cumulative primitives (cumsum/cummax/cummin) instead of scatters
+(``segment_sum`` with millions of segments) or large gathers; only the
+tiny per-sample statistics use masked reductions.
 """
 
 from __future__ import annotations
@@ -31,44 +30,14 @@ U32 = jnp.uint32
 I32 = jnp.int32
 
 
-def rev_cummin_1d(x):
-    """Reverse (suffix) cumulative min, two-level blocked.
-
-    XLA's 1-D cummin at streaming-chunk width costs ~30 ms for 62.5M
-    i32 on a v5e; reshaping to (R, 7680) rows, scanning rows in
-    parallel and combining with a tiny row-carry suffix min measures
-    13.9 ms — 2.1x, bit-exact (scripts/profile_cummin.py). Falls back
-    to the native primitive for small or indivisible inputs."""
-    n = x.shape[0]
-    C = 7680
-    R = n // C
-    if R < 64:
-        return jax.lax.cummin(x, reverse=True)
-    rem = n - R * C
-    ident = jnp.asarray(jnp.iinfo(x.dtype).max, dtype=x.dtype)
-    if rem:
-        tail_cm = jax.lax.cummin(x[R * C:], reverse=True)
-        tail_min = tail_cm[0]
-    else:
-        tail_min = ident
-    body = x[:R * C].reshape(R, C)
-    rowmin = jax.lax.cummin(body, axis=1, reverse=True)
-    heads = rowmin[:, 0]
-    z = jnp.concatenate([heads[1:],
-                         jnp.full((1,), tail_min, dtype=x.dtype)])
-    carry = jax.lax.cummin(z, reverse=True)
-    out = jnp.minimum(rowmin, carry[:, None]).ravel()
-    return jnp.concatenate([out, tail_cm]) if rem else out
-
-
 def _next_boundary(mark, idx, n):
     """First index strictly greater than i where ``mark`` holds (else n).
 
-    Implemented with the native cumulative-min primitive (efficient TPU
-    lowering, unlike generic associative_scan with custom operators)."""
+    Implemented with the native cumulative-min primitive (one fused
+    pass, unlike generic associative_scan with custom operators)."""
     bound = jnp.where(mark, idx, n)
     nxt = jnp.concatenate([bound[1:], jnp.full((1,), n, dtype=I32)])
-    return rev_cummin_1d(nxt)
+    return jax.lax.cummin(nxt, reverse=True)
 
 
 def _seg_total(x, head):
@@ -108,56 +77,9 @@ def _samp_bits(nsamp: int) -> int:
     return max(1, (nsamp - 1).bit_length())
 
 
-def _use_routed_merge(nw: int = 1, n_runs: int = 8) -> bool:
-    """Mesh receiver backend for re-ordering the all_to_all's sorted runs:
-    KMTRICKS_TPU_ROUTED_MERGE = pallas | xla | auto. "pallas" forces
-    every layout; auto follows the (nw, n_runs) sweep
-    (scripts/profile_routed_merge_sweep.py, v5e, 4.2M total entries,
-    median of 3x10 amortized dispatches, round-4 re-measurement of the
-    r2 single-shape cutoff):
-
-        nw\\runs      8        16        32
-        1        6.2/9.6   7.1/9.7   8.3/9.7    merge/sort ms
-        2        8.5/12.8  10.9/12.9 12.4/12.8
-        3        13.5/17.0 15.2/15.9 18.4/15.7
-        5        21.1/23.8 27.8/24.0 33.5/24.1
-
-    Merge cost grows ~nw * log2(n_runs) (levels x word traffic); the
-    sort is ~flat in run count. Auto = merge when nw <= 2, 3-word up to
-    16 runs, 4-5 words only at <= 8 runs (9-word kw stays lax.sort:
-    41.6 vs 40.1 ms, r2). Read at trace time."""
-    import os
-    mode = os.environ.get("KMTRICKS_TPU_ROUTED_MERGE", "auto")
-    if mode == "pallas":
-        return True
-    if mode == "xla":
-        return False
-    if jax.default_backend() != "tpu":
-        return False
-    if nw <= 2:
-        return True
-    if nw == 3:
-        return n_runs <= 16
-    return nw <= 5 and n_runs <= 8
-
-
-def _use_pallas_segscan() -> bool:
-    """Segment-stage backend: KMTRICKS_TPU_SEGSCAN = pallas | xla | auto
-    (default auto = Pallas kernels on TPU, cumulative primitives
-    elsewhere). Read at trace time."""
-    import os
-    mode = os.environ.get("KMTRICKS_TPU_SEGSCAN", "auto")
-    if mode == "pallas":
-        return True
-    if mode == "xla":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-
 # ---------------------------------------------------------------------------
 # Packed sort layouts. Each packs (valid, partition, key, sample) into the
-# fewest u32 sort operands (sort cost is operand-count-bound on TPU) with
+# fewest u32 sort operands (fewer operands, less sort traffic) with
 # all-ones sentinel for invalid entries — which is also the all_to_all
 # padding sentinel, so routed buffers need no separate validity channel.
 # ---------------------------------------------------------------------------
@@ -413,13 +335,11 @@ def unpack_sorted(layout: str, ws, nsamp: int, key_bits, window_bits):
     raise ValueError(layout)
 
 
+@jax.named_scope("sort")
 def sort_packed(layout: str, words):
-    """Sort packed words (all operands are keys). lax.sort is the
-    measured comparison-sort floor on this hardware — the full Pallas
-    bitonic/merge-path sort lost (16.2 vs 10.8 ms at 4.19M) and was
-    evicted in r4 (git history keeps it; NOTES.md has the accounting).
-    Only the routed-RUN merge survives (merge_sorted_runs_*), where the
-    algorithm differs (log2(ndev) merge levels vs a full sort)."""
+    """Sort packed words (all operands are keys) with ``lax.sort``: XLA
+    picks the GPU sort (a radix sort for one operand, its own
+    multi-operand sort otherwise)."""
     return jax.lax.sort(words, dimension=0, num_keys=len(words))
 
 
@@ -499,8 +419,7 @@ def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
     # Packed fast path (hash mode): the window hash is bounded by
     # window_bits * nb_parts = 2^key_bits, so (valid | hash | sample) packs
     # into ONE u32 sort operand when 1 + key_bits + sb <= 32 (two when
-    # <= 64) — the sort cost on TPU scales with operand count (measured
-    # v5e, 4.19M rows: 1 op 9.6ms / 2 ops 12.5ms / 4 ops 18.3ms), and the
+    # <= 64) — fewer sort operands, less sort traffic — and the
     # partition is recomputed afterwards as hash // window_bits instead of
     # riding the sort.
     layout = packed_layout(nsamp, nw, part_follows_keys, key_bits,
@@ -522,9 +441,11 @@ def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
         # validity bit folds into keys[0] and part rides as a sorted VALUE:
         # 3 sort operands instead of 5
         k0 = (inv * top) | keys[0]
-        sorted_ops = jax.lax.sort(
-            (k0,) + tuple(keys[1:]) + (samp.astype(U32), part.astype(U32)),
-            dimension=0, num_keys=1 + nw)
+        with jax.named_scope("sort"):
+            sorted_ops = jax.lax.sort(
+                (k0,) + tuple(keys[1:]) + (samp.astype(U32),
+                                           part.astype(U32)),
+                dimension=0, num_keys=1 + nw)
         k0_s = sorted_ops[0]
         keys_s = (k0_s & (top - U32(1)),) + sorted_ops[1:nw]
         samp_s = sorted_ops[nw]
@@ -534,9 +455,10 @@ def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
         # partition ids are u16 — fold the validity bit into the partition
         # operand (one fewer sort key)
         p0 = (inv * top) | part.astype(U32)
-        sorted_ops = jax.lax.sort(
-            (p0,) + tuple(keys) + (samp.astype(U32),),
-            dimension=0, num_keys=2 + nw)
+        with jax.named_scope("sort"):
+            sorted_ops = jax.lax.sort(
+                (p0,) + tuple(keys) + (samp.astype(U32),),
+                dimension=0, num_keys=2 + nw)
         p0_s = sorted_ops[0]
         part_s = p0_s & (top - U32(1))
         keys_s = sorted_ops[1:1 + nw]
@@ -569,6 +491,7 @@ def _per_position(vec_or_scalar, samp_i, nsamp, default_scalar):
     return vec[samp_i]
 
 
+@jax.named_scope("segment_stage")
 def _segment_stage(part_s, keys_s, samp_s, valid_s, occ_d, kd, amin_vec, *,
                    nsamp: int, hard_min: int, rmin: int, save_if: int,
                    count_max: int, with_stats: bool, hard_min_vec=None):
@@ -586,48 +509,36 @@ def _segment_stage(part_s, keys_s, samp_s, valid_s, occ_d, kd, amin_vec, *,
     amin_of = _per_position(amin_vec, samp_i, nsamp, 0)
     hmin_of = _per_position(hard_min_vec, samp_i, nsamp, hard_min)
 
-    if _use_pallas_segscan():
-        # fused two-pass Pallas kernels: O(1) HBM round-trips instead of
-        # ~7 separate cumulative-primitive passes (~3.5 ms each at 4M)
-        from kmtricks_tpu.ops.pallas_segscan import segment_stage_pallas
-        (cnt_i, present, solid, final_i, row_head, row_keep,
-         row_of) = segment_stage_pallas(
-            occ_diff, key_diff, valid_s, amin_of, hmin_of,
-            rmin=rmin, save_if=save_if, count_max=count_max)
-        cnt = cnt_i.astype(U32)
-        final = final_i.astype(U32)
-        rescued = present & ~solid & (final > 0)
+    idx = jnp.arange(n, dtype=I32)
+    occ_head = occ_diff & valid_s
+    key_head = key_diff & valid_s
+
+    # (key, sample) run length at occ heads: distance to the next
+    # occurrence boundary (next occ head or first invalid entry)
+    nxt_occ = _next_boundary(occ_diff | ~valid_s, idx, n)
+    cnt_raw = jnp.where(occ_head, nxt_occ - idx, 0).astype(U32)
+    present = occ_head & (cnt_raw >= hmin_of)   # count-stage hard-min
+    cnt = jnp.minimum(cnt_raw, U32(count_max))  # saturating store
+
+    # A matrix row exists only for keys present (post hard-min) in
+    # >= 1 sample; its head is the FIRST present entry of the key.
+    excl = jnp.cumsum(present.astype(I32)) - present.astype(I32)
+    group_base = jax.lax.cummax(jnp.where(key_head, excl, 0))
+    row_head = present & (excl == group_base)
+    row_of = jnp.maximum(jnp.cumsum(row_head.astype(I32)) - 1, 0)
+
+    solid = present & (cnt >= amin_of)
+
+    # per-key solid count. Invalid tail entries merge into the final
+    # key segment but contribute 0, so the totals stay correct.
+    solid_in = _seg_total(solid, key_diff)
+
+    if save_if > 0:
+        rescued = present & ~solid & (solid_in >= save_if)
     else:
-        idx = jnp.arange(n, dtype=I32)
-        occ_head = occ_diff & valid_s
-        key_head = key_diff & valid_s
-
-        # (key, sample) run length at occ heads: distance to the next
-        # occurrence boundary (next occ head or first invalid entry)
-        nxt_occ = _next_boundary(occ_diff | ~valid_s, idx, n)
-        cnt_raw = jnp.where(occ_head, nxt_occ - idx, 0).astype(U32)
-        present = occ_head & (cnt_raw >= hmin_of)   # count-stage hard-min
-        cnt = jnp.minimum(cnt_raw, U32(count_max))  # saturating store
-
-        # A matrix row exists only for keys present (post hard-min) in
-        # >= 1 sample; its head is the FIRST present entry of the key.
-        excl = jnp.cumsum(present.astype(I32)) - present.astype(I32)
-        group_base = jax.lax.cummax(jnp.where(key_head, excl, 0))
-        row_head = present & (excl == group_base)
-        row_of = jnp.maximum(jnp.cumsum(row_head.astype(I32)) - 1, 0)
-
-        solid = present & (cnt >= amin_of)
-
-        # per-key solid count. Invalid tail entries merge into the final
-        # key segment but contribute 0, so the totals stay correct.
-        solid_in = _seg_total(solid, key_diff)
-
-        if save_if > 0:
-            rescued = present & ~solid & (solid_in >= save_if)
-        else:
-            rescued = jnp.zeros_like(solid)
-        final = jnp.where(solid | rescued, cnt, U32(0))
-        row_keep = row_head & (solid_in >= rmin)
+        rescued = jnp.zeros_like(solid)
+    final = jnp.where(solid | rescued, cnt, U32(0))
+    row_keep = row_head & (solid_in >= rmin)
 
     if with_stats:
         stats = jnp.stack([
@@ -640,8 +551,8 @@ def _segment_stage(part_s, keys_s, samp_s, valid_s, occ_d, kd, amin_vec, *,
             _per_sample(final, samp_i, nsamp),            # TOTAL_W_RESCUE
         ])
     else:
-        # ~20% of the step; callers that rebuild per-partition stats on
-        # host (the mesh runtime) skip the device reductions
+        # callers that rebuild per-partition stats on host (the mesh
+        # runtime) skip the device reductions
         stats = jnp.zeros((6, nsamp), dtype=U32)
     return (part_s.astype(I32), keys_s, samp_i, final, cnt,
             present, row_head, row_keep, row_of, stats)
@@ -664,17 +575,10 @@ def count_merge_packed(words, amin_vec, *, layout: str, nsamp: int,
 
     ``sorted_runs``: the words are a concatenation of this many ascending
     equal-length runs (the all_to_all delivers one sorted run per peer,
-    sentinel-tail-padded). One run needs no re-ordering at all; for the
-    single-word "h1" layout a log2(runs)-level Pallas merge replaces the
-    full re-sort (~3 merge levels vs ~242 lax.sort stages at 8 peers)."""
+    sentinel-tail-padded). One run needs no re-ordering at all; more runs
+    are re-sorted whole by ``sort_packed``."""
     if sorted_runs == 1:
         ws = tuple(words)
-    elif (sorted_runs is not None
-            and words[0].shape[0] % sorted_runs == 0
-            and _use_routed_merge(len(words), sorted_runs)):
-        from kmtricks_tpu.ops.pallas_sort import merge_sorted_runs_words
-        ws = merge_sorted_runs_words(
-            tuple(w.reshape(sorted_runs, -1) for w in words))
     else:
         ws = sort_packed(layout, tuple(words))
     part_s, keys_s, samp_s, valid_s, occ_d, kd = unpack_sorted(

@@ -1,8 +1,8 @@
 """Device encode kernel: ASCII read batches -> canonical k-mers, minimizers,
-partitions — the TPU-native replacement for the reference's streaming
+partitions — the device replacement for the reference's streaming
 superkmerization (gatb/fill_partitions.hpp + Sequence2SuperKmer).
 
-Superkmers are a disk-era shuffling artifact; on TPU we produce
+Superkmers are a disk-era shuffling artifact; on the device we produce
 (canonical k-mer, partition) tuples directly from fixed-shape read batches
 with validity masks. All semantics are byte-identical to the reference:
 
@@ -43,18 +43,18 @@ def unpack_2bit(packed, vbits, L: int):
     ``packed``: (L/4, B) uint8, position 4*q + j in bits [2j, 2j+2);
     ``vbits``: (L/8, B) uint8, position 8*q + j in bit j (LSB-first),
     or None for a chunk with no interior non-ACGT byte (the common
-    case): per-char validity is then all-True and the read-length mask
-    (already applied by window validity) is the only constraint — the
-    validity plane stays off the device link entirely (a third of the
-    chunk upload bytes).
-    The packed upload is 0.375 bytes/base vs 1 for ASCII — the device
-    link is the streaming engine's bottleneck (NOTES.md).
+    case): ``valid`` is then None — every char is valid and the
+    read-length mask of :func:`_window_validity` is the only constraint
+    (an all-True plane would make XLA constant-fold its prefix sum at
+    compile time). The validity plane then stays off the host link (a
+    third of the chunk upload bytes); the packed upload is 0.375
+    bytes/base vs 1 for ASCII.
     """
     p = packed.astype(U32)
     codes = jnp.stack([(p >> U32(2 * j)) & U32(3) for j in range(4)],
                       axis=1).reshape(L, -1)
     if vbits is None:
-        valid = jnp.ones(codes.shape, dtype=bool)
+        valid = None
     else:
         v = vbits.astype(U32)
         valid = jnp.stack([(v >> U32(j)) & U32(1) for j in range(8)],
@@ -161,20 +161,29 @@ def sliding_min(x, w: int, seq_axis: int = -1):
     return y
 
 
-def _window_validity(char_valid, lengths, k: int, seq_axis: int):
-    """(.., W, ..) bool — window has k valid chars and fits the read."""
+def _window_validity(char_valid, lengths, k: int, seq_axis: int,
+                     codes_shape=None):
+    """(.., W, ..) bool — window has k valid chars and fits the read.
+    ``char_valid`` None means every char is valid (then ``codes_shape``
+    gives the batch shape) and only the read lengths bound windows."""
     assert seq_axis in (0, 1), "seq_axis must be 0 (L, B) or 1 (B, L)"
+    shape = char_valid.shape if char_valid is not None else codes_shape
+    W = shape[seq_axis] - k + 1
+    wshape = list(shape)
+    wshape[seq_axis] = W
+    pos = jax.lax.broadcasted_iota(jnp.int32, tuple(wshape), seq_axis)
+    lb = lengths[:, None] if seq_axis == 1 else lengths[None, :]
+    fits = pos + k <= lb
+    if char_valid is None:
+        return fits
     bad = (~char_valid).astype(jnp.int32)
     cs = jnp.cumsum(bad, axis=seq_axis)
     pad = [(0, 0), (0, 0)]
     pad[seq_axis] = (1, 0)
     csz = jnp.pad(cs, pad)
-    W = char_valid.shape[seq_axis] - k + 1
     win_clean = (_slice_seq(csz, k, W, seq_axis)
                  - _slice_seq(csz, 0, W, seq_axis)) == 0
-    pos = jax.lax.broadcasted_iota(jnp.int32, win_clean.shape, seq_axis)
-    lb = lengths[:, None] if seq_axis == 1 else lengths[None, :]
-    return win_clean & (pos + k <= lb)
+    return win_clean & fits
 
 
 def _minimizer_partitions(codes, repart_table, k: int, m: int,
@@ -207,6 +216,7 @@ def _minimizer_partitions(codes, repart_table, k: int, m: int,
 
 @partial(jax.jit, static_argnames=("k", "m", "static_parts", "seq_axis",
                                    "mmer_canonical"))
+@jax.named_scope("encode")
 def encode_batch(batch, lengths, repart_table, k: int, m: int,
                  static_parts: int | None = None, seq_axis: int = 1,
                  mmer_canonical: bool = True):
@@ -215,15 +225,13 @@ def encode_batch(batch, lengths, repart_table, k: int, m: int,
     Parameters
     ----------
     batch : (B, L) uint8 ASCII (padded arbitrarily past ``lengths``), or
-        (L, B) with ``seq_axis=0`` — on TPU the sequence-along-sublanes
-        layout is ~20%% cheaper (lane-axis shifts are full permutes;
-        sublane shifts are cheap)
+        (L, B) with ``seq_axis=0`` (the "lb" layout the mesh paths use)
     lengths : (B,) int32 actual read lengths
     repart_table : (4^m,) int32 minimizer -> partition
     k, m : static sizes (k <= 32, m <= 15)
     static_parts : if set (= nb_partitions), compute the --static-repart
         partition XXH64(minimizer) %% P arithmetically instead of the table
-        gather (a 4M-wide gather costs ~7x the whole encode on TPU)
+        gather
     seq_axis : which batch axis is the sequence (1 for (B, L), 0 for (L, B));
         outputs use the same layout
 
@@ -241,7 +249,8 @@ def encode_batch(batch, lengths, repart_table, k: int, m: int,
         L = batch.shape[seq_axis]
         codes, char_valid = ascii_to_codes(batch)
     W = L - k + 1
-    valid = _window_validity(char_valid, lengths, k, seq_axis)
+    valid = _window_validity(char_valid, lengths, k, seq_axis,
+                             codes.shape)
 
     # packed forward k-mers, rolled in over k static slices
     hi = jnp.zeros_like(_slice_seq(codes, 0, W, seq_axis))
@@ -307,6 +316,7 @@ def device_key_words(k: int) -> int:
 
 @partial(jax.jit, static_argnames=("k", "m", "static_parts", "seq_axis",
                                    "mmer_canonical"))
+@jax.named_scope("encode")
 def encode_batch_wide(batch, lengths, repart_table, k: int, m: int,
                       static_parts: int | None = None, seq_axis: int = 1,
                       mmer_canonical: bool = True):
@@ -326,7 +336,8 @@ def encode_batch_wide(batch, lengths, repart_table, k: int, m: int,
         L = batch.shape[seq_axis]
         codes, char_valid = ascii_to_codes(batch)
     W = L - k + 1
-    valid = _window_validity(char_valid, lengths, k, seq_axis)
+    valid = _window_validity(char_valid, lengths, k, seq_axis,
+                             codes.shape)
 
     zero = jnp.zeros_like(_slice_seq(codes, 0, W, seq_axis))
     fwd = [zero for _ in range(nw)]

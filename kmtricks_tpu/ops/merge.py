@@ -1,6 +1,6 @@
 """Device merge kernel: cross-sample k-way merge with low-abundance rescue.
 
-The TPU-native reformulation of the reference's streaming N-way heap merge
+The device reformulation of the reference's streaming N-way heap merge
 (merge.hpp:183-260 / 441-517): co-sort (key, sample, count) triples, then
 express the rescue semantics as segmented reductions —
 

@@ -1,4 +1,4 @@
-"""Device repartition sampler: the SampleRepart kx-mer tally on TPU.
+"""Device repartition sampler: the SampleRepart kx-mer tally on the device.
 
 The reference samples the bank and tallies KX-MER STARTS per minimizer to
 weight the LPT bin packing (RepartitionAlgorithm.cpp:157-243): within each
@@ -6,7 +6,7 @@ superkmer (maximal run of consecutive valid k-mer windows sharing a
 minimizer), a new kx-mer starts when the canonical strand flips or every
 4th k-mer of a same-strand run.  The host twin
 (`runtime.pipeline._tally_kxmer_starts`) is vectorized numpy; this module
-is the TPU-native version: whole read batches ride the 2-bit packed
+is the device version: whole read batches ride the 2-bit packed
 upload, every per-window quantity (minimizer, strand, run break, kx
 start) is computed as a (W, B) array pass, and one scatter-add lands the
 tally in a device-resident (4^m,) table that accumulates across chunks —
@@ -128,7 +128,8 @@ def tally_step(bins, packed, vbits, lengths, freq_table, *,
     """
     codes, char_valid = unpack_2bit(packed, vbits, L)
     W = L - k + 1
-    wv = _window_validity(char_valid, lengths, k, seq_axis=0)      # (W, B)
+    wv = _window_validity(char_valid, lengths, k, seq_axis=0,
+                          codes_shape=codes.shape)          # (W, B)
     minim = _window_minimizer_values(codes, k, m, freq_table,
                                      use_freq)[:W]
     which = _strand_forward(codes, k)                              # (W, B)

@@ -1,8 +1,9 @@
-"""uint64 arithmetic emulated as (hi, lo) uint32 pairs for TPU.
+"""uint64 arithmetic emulated as (hi, lo) uint32 pairs.
 
-TPUs (and Pallas TPU kernels) have no native 64-bit integer path worth
-using; every 64-bit quantity in the device pipeline — packed k-mers, XXH64
-state, window hashes — is carried as a pair of uint32 arrays. These helpers
+Every 64-bit quantity in the device pipeline — packed k-mers, XXH64
+state, window hashes — is carried as a pair of uint32 arrays, so the
+device programs run without jax's x64 mode (whether native uint64 is
+faster on the GPU is an open measurement). These helpers
 are shape-polymorphic and jit-friendly (all shifts/constants static).
 
 The same functions run under numpy for golden tests (jnp and np share the

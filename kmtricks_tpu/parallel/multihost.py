@@ -1,15 +1,15 @@
 """Multi-host execution glue.
 
 The reference scales across machines by running module processes against a
-shared filesystem (SURVEY.md §2.5 "multi-node"); the TPU-native equivalents
+shared filesystem (SURVEY.md §2.5 "multi-node"); the device equivalents
 are (a) that same module workflow — every `kmtricks_tpu` subcommand works
 against a shared run directory — and (b) a jax.distributed mesh where the
-fused pipeline's all_to_all rides ICI/DCN instead of files.
+fused pipeline's all_to_all rides the interconnect instead of files.
 
-On a pod slice, each host calls :func:`initialize` (or relies on the TPU
-environment auto-detection), builds the global mesh, and feeds its
-process-local shard of the read batches; `build_sharded_pipeline` handles
-the rest — the in/out specs are GLOBAL shapes, jax splits them over hosts.
+Each process calls :func:`initialize`, builds the global mesh, and feeds
+its process-local shard of the read batches; `build_sharded_pipeline`
+handles the rest — the in/out specs are GLOBAL shapes, jax splits them
+over processes.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Initialize jax.distributed (no-op if already initialized or single
-    process). On Cloud TPU the arguments are auto-detected."""
+    process). GPU hosts detect nothing: every process passes the same
+    ``coordinator_address`` (``host:port`` of process 0), the
+    ``num_processes`` and its own ``process_id``."""
     try:
         jax.distributed.initialize(coordinator_address, num_processes,
                                    process_id)

@@ -1,6 +1,6 @@
 """Superkmer stage: GATB-compatible superkmer partition files.
 
-On TPU the pipeline routes k-mers with an all_to_all and never materializes
+On the device the pipeline routes k-mers with an all_to_all and never materializes
 superkmers — but the reference's module workflow (``kmtricks superk`` then
 ``kmtricks count --id``) and downstream consumers (kmdiff) exchange
 superkmer files, so we produce/consume the same artifacts:

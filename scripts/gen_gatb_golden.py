@@ -30,7 +30,9 @@ import tempfile
 REF = "/root/reference/thirdparty/gatb-core-stripped"
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "..", "tests", "data_ref_exec")
-BUILD = os.environ.get("KMTRICKS_GATB_BUILD", "/tmp/gatb_build")
+BUILD = os.environ.get("KMTRICKS_GATB_BUILD", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".bench",
+    "gatb_build"))
 
 # compiled twice: plain (ModelCanonical — the reference BINARY's actual
 # routing: fill_partitions.hpp:20's NONCANONICAL define is dead by include

@@ -1,13 +1,13 @@
 """Time the e2e-shaped chunk step program with device-resident inputs
-(no link traffic) — for A/B of chunk_count_pairs internals."""
+(no host-device transfers) — for A/B of chunk_count_pairs internals."""
 import os, sys, time
 _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo)
 import jax, jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(_repo, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+enable_compile_cache()
 
 from kmtricks_tpu.parallel.pipeline import build_chunk_pairs_step, make_mesh
 

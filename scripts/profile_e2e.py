@@ -1,8 +1,8 @@
-"""Profile the bench e2e (warm + timed, trace on) on the real chip.
+"""Profile the bench e2e (warm + timed, trace on) on the GPU.
 
 Replicates bench.py's pipeline_e2e setup exactly; prints the stream
 trace timeline of the TIMED run plus phase-level walls, so regressions
-in the driver-captured number can be attributed (VERDICT r4 item 1/4).
+in the e2e number can be attributed to a phase.
 Usage: python scripts/profile_e2e.py [--adaptive]
 """
 import os
@@ -10,25 +10,20 @@ import shutil
 import sys
 import time
 
-import numpy as np
 
 os.environ.setdefault("KMTRICKS_STREAM_CHUNK_WINDOWS", "62500000")
 if "--adaptive" not in sys.argv:
     os.environ.setdefault("KMTRICKS_STREAM_PAIR_CAP", str(1 << 23))
-
-import jax
-
-cache = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 
 _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo)
 sys.path.insert(0, os.path.join(_repo, "scripts"))
 from gen_synth_bank import gen_bank
 
-bank_dir = "/tmp/kmtricks_bench_bank_v1"
+from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+enable_compile_cache()
+
+bank_dir = os.path.join(_repo, ".bench", "bank_v1")
 fof_p = os.path.join(bank_dir, "bank.fof")
 if not os.path.exists(fof_p):
     gen_bank(bank_dir, nsamp=10, genome=1_000_000, coverage=30.0,
@@ -46,28 +41,16 @@ def _opts(run_dir):
         max_memory_mb=6000)
 
 
-def _link_probe():
-    blob = np.random.default_rng(3).integers(0, 256, 15 << 20,
-                                             dtype=np.uint8)
-    d = jax.device_put(blob); np.asarray(d[-8:])
-    t = time.perf_counter()
-    d = jax.device_put(blob); np.asarray(d[-8:])
-    return 15 / (time.perf_counter() - t)
-
-
-print(f"link before warm: {_link_probe():.1f} MB/s", flush=True)
+run_dir = os.path.join(_repo, ".bench", "e2e")
 os.environ["KMTRICKS_STREAM_TRACE"] = "1"
-shutil.rmtree("/tmp/kmtricks_bench_e2e", ignore_errors=True)
+shutil.rmtree(run_dir, ignore_errors=True)
 t0 = time.perf_counter()
-run_mesh_pipeline(_opts("/tmp/kmtricks_bench_e2e"))
+run_mesh_pipeline(_opts(run_dir))
 print(f"WARM wall {time.perf_counter() - t0:.2f}s", flush=True)
-print(f"link after warm: {_link_probe():.1f} MB/s", flush=True)
 
-os.environ["KMTRICKS_STREAM_TRACE"] = "1"
-shutil.rmtree("/tmp/kmtricks_bench_e2e", ignore_errors=True)
+shutil.rmtree(run_dir, ignore_errors=True)
 t0 = time.perf_counter()
-run_mesh_pipeline(_opts("/tmp/kmtricks_bench_e2e"))
+run_mesh_pipeline(_opts(run_dir))
 wall = time.perf_counter() - t0
 n = 10 * (1_000_000 * 30 // 1024) * (1024 - 31 + 1)
 print(f"TIMED wall {wall:.2f}s = {n/wall/1e6:.1f}M kmers/s", flush=True)
-print(f"link after timed: {_link_probe():.1f} MB/s", flush=True)

@@ -17,10 +17,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", os.path.abspath(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+    enable_compile_cache()
 
     from kmtricks_tpu.ops.count_merge import count_merge_keys, packed_layout
 

@@ -10,9 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(repo, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+enable_compile_cache()
 
 from kmtricks_tpu.ops.table import _sat_add, _words_equal_next
 from kmtricks_tpu.parallel.pipeline import _table_presence

@@ -21,10 +21,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", os.path.abspath(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+    enable_compile_cache()
 
     N = 4 * 1024 * 1024 + 65536     # ~4.19M, the bench step size
 

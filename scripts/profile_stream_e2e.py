@@ -10,10 +10,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.path.abspath(
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                 ".jax_cache")))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+enable_compile_cache()
 
 os.environ.setdefault("KMTRICKS_STREAM_TRACE", "1")
 os.environ.setdefault("KMTRICKS_STREAM_PAIR_CAP", str(1 << 23))
@@ -23,7 +21,8 @@ from gen_synth_bank import gen_bank
 from kmtricks_tpu.runtime.device_pipeline import run_mesh_pipeline
 from kmtricks_tpu.runtime.pipeline import PipelineOptions
 
-bank_dir = "/tmp/kmtricks_bench_bank_v1"
+bank_dir = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".bench", "bank_v1")
 fof_p = os.path.join(bank_dir, "bank.fof")
 if not os.path.exists(fof_p):
     gen_bank(bank_dir, nsamp=10, genome=1_000_000, coverage=30.0,
@@ -39,8 +38,8 @@ def opts(run_dir):
 n_e2e = 10 * (1_000_000 * 30 // 1024) * (1024 - 31 + 1)
 runs = int(os.environ.get("RUNS", "2"))
 for r in range(runs):
-    shutil.rmtree("/tmp/kmtricks_e2e_prof", ignore_errors=True)
+    shutil.rmtree(os.path.join(os.path.dirname(bank_dir), "e2e_prof"), ignore_errors=True)
     t0 = time.perf_counter()
-    run_mesh_pipeline(opts("/tmp/kmtricks_e2e_prof"))
+    run_mesh_pipeline(opts(os.path.join(os.path.dirname(bank_dir), "e2e_prof")))
     w = time.perf_counter() - t0
     print(f"RUN {r}: {w:.2f}s = {n_e2e / w / 1e6:.1f}M kmers/s", flush=True)

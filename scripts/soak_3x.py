@@ -12,13 +12,13 @@ _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo); sys.path.insert(0, os.path.join(_repo, "scripts"))
 import numpy as np
 import jax
-jax.config.update("jax_compilation_cache_dir", os.path.join(_repo, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+enable_compile_cache()
 from gen_synth_bank import gen_bank
 from kmtricks_tpu.runtime.pipeline import PipelineOptions
 from kmtricks_tpu.runtime.device_pipeline import run_mesh_pipeline
 
-bank = "/tmp/kmtricks_soak_bank"
+bank = os.path.join(_repo, ".bench", "soak_bank")
 fof = os.path.join(bank, "bank.fof")
 if not os.path.exists(fof):
     t0 = time.time()
@@ -36,7 +36,7 @@ def opts(run_dir):
 
 walls = []
 for tag in ("cold", "warm"):
-    rd = f"/tmp/kmtricks_soak_{tag}"
+    rd = os.path.join(_repo, ".bench", f"soak_{tag}")
     shutil.rmtree(rd, ignore_errors=True)
     t0 = time.perf_counter()
     run_mesh_pipeline(opts(rd))
@@ -49,11 +49,11 @@ sizes = {}
 for tag in ("cold", "warm"):
     sizes[tag] = sorted(
         (os.path.basename(p), os.path.getsize(p))
-        for p in glob.glob(f"/tmp/kmtricks_soak_{tag}/matrices/*"))
+        for p in glob.glob(os.path.join(_repo, ".bench", f"soak_{tag}", "matrices", "*")))
 assert sizes["cold"] == sizes["warm"], "cold/warm matrices differ!"
 import hashlib
 h = {tag: hashlib.sha256(b"".join(
-        open(f"/tmp/kmtricks_soak_{tag}/matrices/{n}", "rb").read()
+        open(os.path.join(_repo, ".bench", f"soak_{tag}", "matrices", n), "rb").read()
         for n, _ in sizes[tag])).hexdigest()
      for tag in ("cold", "warm")}
 assert h["cold"] == h["warm"], "cold/warm matrix bytes differ!"

@@ -7,11 +7,11 @@ _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo)
 import numpy as np
 import jax
-jax.config.update("jax_compilation_cache_dir", os.path.join(_repo, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+from kmtricks_tpu.runtime.jax_cache import enable_compile_cache
+enable_compile_cache()
 from kmtricks_tpu.runtime.pipeline import PipelineOptions, run_pipeline
 
-bank = "/tmp/kmtricks_pa2000_bank"
+bank = os.path.join(_repo, ".bench", "pa2000_bank")
 fof = os.path.join(bank, "bank.fof")
 if not os.path.exists(fof):
     os.makedirs(bank, exist_ok=True)
@@ -31,7 +31,7 @@ if not os.path.exists(fof):
 
 n = 2000 * 12 * (512 - 31 + 1)
 for tag in ("cold", "warm"):
-    rd = f"/tmp/kmtricks_pa2000_{tag}"
+    rd = os.path.join(_repo, ".bench", f"pa2000_{tag}")
     shutil.rmtree(rd, ignore_errors=True)
     t0 = time.perf_counter()
     run_pipeline(PipelineOptions(
@@ -42,6 +42,6 @@ for tag in ("cold", "warm"):
     print(f"PA2000 {tag}: {w:.1f}s = {n/w/1e6:.2f}M kmers/s", flush=True)
 import glob
 tot = sum(os.path.getsize(p)
-          for p in glob.glob("/tmp/kmtricks_pa2000_warm/matrices/*"))
+          for p in glob.glob(os.path.join(_repo, ".bench", "pa2000_warm", "matrices", "*")))
 print(f"{len(glob.glob('/tmp/kmtricks_pa2000_warm/matrices/*'))} matrices, "
       f"{tot/1e6:.1f} MB", flush=True)

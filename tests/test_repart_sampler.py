@@ -1,4 +1,4 @@
-"""Device SampleRepart tally parity: the TPU kx-mer-start sampler
+"""Device SampleRepart tally parity: the device kx-mer-start sampler
 (ops/repart_sample.py) must produce bit-identical bins to the host numpy
 tally for any bank — same minimizers, strand flips, run breaks and mod-4
 starts (RepartitionAlgorithm.cpp:157-243 semantics)."""
